@@ -20,8 +20,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pypwt_tpu import Wavelets, get_filter_bank  # noqa: E402
-from pypwt_tpu.core import swt, thresh  # noqa: E402
+from pypwt_jax import Wavelets, get_filter_bank  # noqa: E402
+from pypwt_jax.core import swt, thresh  # noqa: E402
 
 
 def psnr(ref, x):

@@ -1,13 +1,12 @@
 #!/usr/bin/env python
 """Distributed denoising on a device mesh, five ways:
 
-* BatchedWavelets — a (B, Nr, Nc) frame stack data-parallel over chips
+* BatchedWavelets — a (B, Nr, Nc) frame stack data-parallel over devices
   (the tomography/video configuration);
 * BatchedWavelets hybrid — frames over the data axis AND each frame's
   rows over the rows axis (stacks of large frames);
-* ShardedWavelets — ONE large image with rows sharded across chips,
-  halos exchanged over the ICI ring, per-chip compute on the fused
-  Pallas kernels;
+* ShardedWavelets — ONE large image with rows sharded across devices,
+  halos exchanged between ring neighbours;
 * ShardedWavelets grid — BOTH image axes sharded on a (rows, cols)
   mesh;
 * ShardedWavelets sequence — ONE long 1D signal, the signal axis
@@ -20,8 +19,9 @@ Runs anywhere: on a CPU-only machine set
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 
-to simulate an 8-chip mesh (what the test suite does); on a TPU slice it
-uses the real chips unchanged.
+to simulate an 8-device mesh (what the test suite does); on a machine
+with several GPUs it uses the real cards unchanged (one process drives
+them all).
 
 Run:  python examples/distributed_denoise.py [--size 512] [--beta 15]
 """
@@ -67,7 +67,7 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     global BatchedWavelets, ShardedWavelets, pmesh
-    from pypwt_tpu.parallel import (BatchedWavelets, ShardedWavelets,
+    from pypwt_jax.parallel import (BatchedWavelets, ShardedWavelets,
                                     mesh as pmesh)
 
     ndev = len(jax.devices())

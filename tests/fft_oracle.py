@@ -230,3 +230,55 @@ def fft_iswt1d(coeffs, fb):
         a = fft_swt_synthesis_1d(a, coeffs[lev], fb.rec_lo, fb.rec_hi,
                                  lev)
     return a
+
+
+# ---------------------------------------------------------------------------
+# Non-separable 2D banks: the same convention with one 2D correlation per
+# subband filter (F indexed [row tap, column tap]).
+# ---------------------------------------------------------------------------
+
+def _corr2(x, g_embedded):
+    X = np.fft.fft2(x, axes=(-2, -1))
+    G = np.fft.fft2(g_embedded)
+    return np.real(np.fft.ifft2(X * np.conj(G), axes=(-2, -1)))
+
+
+def _embed2(F, factor, shape):
+    g = np.zeros(shape)
+    k = F.shape[0]
+    for a in range(k):
+        for b in range(k):
+            g[(a * factor) % shape[0], (b * factor) % shape[1]] += F[a, b]
+    return g
+
+
+def fft_ns_dwt2d(x, dec):
+    """One non-separable decimating level -> [a, h, v, d] (float64)."""
+    x = np.asarray(x, dtype=np.float64)
+    if x.shape[-1] % 2:
+        x = np.concatenate([x, x[..., -1:]], axis=-1)
+    if x.shape[-2] % 2:
+        x = np.concatenate([x, x[..., -1:, :]], axis=-2)
+    m1, m2 = x.shape[-2:]
+    hlen = dec[0].shape[0]
+    c = hlen // 2 if hlen % 2 else hlen // 2 - 1
+    i1 = (2 * np.arange(m1 // 2) - c) % m1
+    i2 = (2 * np.arange(m2 // 2) - c) % m2
+    return [_corr2(x, _embed2(np.asarray(F, np.float64)[::-1, ::-1], 1,
+                              (m1, m2)))[..., i1[:, None], i2[None, :]]
+            for F in dec]
+
+
+def fft_ns_swt2d_level(x, dec, level):
+    """One non-separable a-trous level -> [a, h, v, d] (float64)."""
+    x = np.asarray(x, dtype=np.float64)
+    n1, n2 = x.shape[-2:]
+    hlen = dec[0].shape[0]
+    factor = 1 << (level - 1)
+    c = (hlen // 2 if hlen % 2 else hlen // 2 - 1) * factor
+    i1 = (np.arange(n1) - c) % n1
+    i2 = (np.arange(n2) - c) % n2
+    return [_corr2(x, _embed2(np.asarray(F, np.float64)[::-1, ::-1],
+                              factor, (n1, n2)))[..., i1[:, None],
+                                                 i2[None, :]]
+            for F in dec]

@@ -8,7 +8,7 @@ forward coefficients, absolute tol for roundtrips).
 import numpy as np
 import pytest
 
-from pypwt_tpu import Wavelets, wavelist
+from pypwt_jax import Wavelets, wavelist
 
 
 def _img(shape=(64, 64), seed=0):
@@ -200,7 +200,7 @@ def test_add_wavelet():
 
 def test_custom_filter_bank_roundtrip():
     """Custom bank (reference demo: LeGall 5/3, demo.cpp:83-179)."""
-    from pypwt_tpu import get_filter_bank
+    from pypwt_jax import get_filter_bank
     img = _img((32, 32))
     W = Wavelets(img, "db2", 2)
     fb = get_filter_bank("bior2.2")  # = LeGall 5/3

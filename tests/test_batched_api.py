@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from pypwt_tpu import Wavelets
-from pypwt_tpu.parallel import BatchedWavelets, mesh as pmesh
+from pypwt_jax import Wavelets
+from pypwt_jax.parallel import BatchedWavelets, mesh as pmesh
 
 
 def _stack(b=8, nr=32, nc=64, seed=0):

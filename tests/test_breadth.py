@@ -13,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from pypwt_tpu import Wavelets, get_filter_bank, wavelist
-from pypwt_tpu.core import dwt, swt
+from pypwt_jax import Wavelets, get_filter_bank, wavelist
+from pypwt_jax.core import dwt, swt
 
 FULL = os.environ.get("PYPWT_FULL_SWEEP", "") == "1"
 
@@ -75,7 +75,7 @@ def test_custom_bank_matches_builtin(wname):
 def test_custom_bank_nonseparable():
     img = _img((64, 64), 2)
     fb = get_filter_bank("db3")
-    from pypwt_tpu.core import nonsep as ns
+    from pypwt_jax.core import nonsep as ns
     f2d = ns.Filters2D.from_bank(fb)
     W = Wavelets(img, "db3", 2, do_separable=0)
     W.set_wavelets_filters(

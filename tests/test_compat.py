@@ -7,8 +7,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pypwt_tpu import compat as pwt
-from pypwt_tpu.filters import get_filter_bank
+from pypwt_jax import compat as pwt
+from pypwt_jax.filters import get_filter_bank
 
 import fft_oracle as fo
 

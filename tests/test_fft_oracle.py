@@ -5,9 +5,9 @@ The reference validated every subband at every level against pywt
 second independently-derived formulation in that role: every filtering
 pass is a spectral circular correlation, not a restatement of the index
 algebra.  Forward subbands at every level AND inverse outputs are pinned,
-for DWT + SWT, 1D + 2D, even and odd sizes.  Full 72-bank sweep behind
-PYPWT_FULL_SWEEP=1 (the default subset spans every family and both filter
-parities).
+for DWT + SWT, 1D + 2D, even and odd sizes.  The 2D DWT covers all 72
+banks; the other sweeps run all 72 behind PYPWT_FULL_SWEEP=1 (the default
+subset spans every family and both filter parities).
 """
 
 import os
@@ -18,8 +18,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu.filters import get_filter_bank, wavelist
-from pypwt_tpu.core import dwt, swt
+from pypwt_jax.filters import get_filter_bank, wavelist
+from pypwt_jax.core import dwt, swt
 
 import fft_oracle as fo
 
@@ -43,17 +43,23 @@ def _pin(got_tree, want_tree, atol):
                                    atol=atol)
 
 
-@pytest.mark.parametrize("wname", NAMES)
+@pytest.mark.parametrize("wname", _ALL)
 @pytest.mark.parametrize("shape", [(64, 96), (47, 58)])
 def test_dwt2d_forward_and_inverse_vs_fft_oracle(wname, shape):
+    """Every bank, even and odd sizes; forward and inverse run as one
+    compiled program."""
     fb = get_filter_bank(wname)
     levels = 2 if fb.hlen <= 24 else 1
     x = RNG.standard_normal(shape)
     want = fo.fft_wavedec2(x, fb, levels)
-    got = dwt.wavedec2(jnp.asarray(x), fb, levels)
+
+    def fwd_inv(v):
+        pyr = dwt.wavedec2(v, fb, levels)
+        return pyr, dwt.waverec2(pyr, fb, shape)
+
+    got, y_got = jax.jit(fwd_inv)(jnp.asarray(x))
     _pin(got, want, 1e-10)
     y_want = fo.fft_waverec2(want, fb, shape)
-    y_got = dwt.waverec2(got, fb, shape)
     np.testing.assert_allclose(np.asarray(y_got, np.float64), y_want,
                                atol=1e-10)
 

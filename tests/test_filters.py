@@ -9,7 +9,7 @@ moments, sign relations.
 import numpy as np
 import pytest
 
-from pypwt_tpu.filters import FilterBank, get_filter_bank, wavelist
+from pypwt_jax.filters import FilterBank, get_filter_bank, wavelist
 from oracle import ref_analysis_1d, ref_synthesis_1d
 
 EXPECTED = (

@@ -13,9 +13,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu.filters import get_filter_bank
-from pypwt_tpu.core import dwt, swt
-from pypwt_tpu.core import nonsep as ns
+from pypwt_jax.filters import get_filter_bank
+from pypwt_jax.core import dwt, swt
+from pypwt_jax.core import nonsep as ns
 
 RNG = np.random.default_rng(3)
 
@@ -72,7 +72,7 @@ def test_separable_bank_factorization():
     (genuinely non-separable) sets must NOT factor and must take the
     true-2D path."""
     import numpy as np
-    from pypwt_tpu import get_filter_bank
+    from pypwt_jax import get_filter_bank
     fb = get_filter_bank("db3")
     f2d = ns.Filters2D.from_bank(fb)
     bank = f2d.separable_bank()
@@ -119,7 +119,7 @@ def test_true_2d_roundtrip_direct_calls():
     """Level round trip through the direct (non-routed) true-2D kernels:
     nsdwt2d -> insdwt2d and ns_swt2d_level -> ins_swt2d_level."""
     import numpy as np
-    from pypwt_tpu import get_filter_bank
+    from pypwt_jax import get_filter_bank
     fb = get_filter_bank("db4")
     f2d = ns.Filters2D.from_bank(fb)
     x = jnp.asarray(np.random.default_rng(6).random((32, 48)).astype(
@@ -133,177 +133,78 @@ def test_true_2d_roundtrip_direct_calls():
     assert float(jnp.abs(y - x).max()) < 5e-6
 
 
-def test_nonsep_pallas_matches_xla_slices():
-    """The fused SVD separable-sum kernels (ops/nonsep_pallas.py,
-    interpret mode) must match the slice-based XLA formulation for an
-    anisotropic (rank-1, non-factorable) bank."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pypwt_tpu.ops import nonsep_pallas as nsp
-    from pypwt_tpu.core import nonsep as ns
-    from pypwt_tpu.filters import get_filter_bank
+# ---------------------------------------------------------------------------
+# Both true-2D formulations (shifted slices up to _SLICE_TAP_LIMIT taps,
+# lax.conv_general_dilated above it) against the spectral 2D oracle
+# ---------------------------------------------------------------------------
 
-    fr = get_filter_bank("db3")
-    fc = get_filter_bank("coif1")
-    dec = [np.outer(fr.dec_lo, fc.dec_lo), np.outer(fr.dec_hi, fc.dec_lo),
-           np.outer(fr.dec_lo, fc.dec_hi), np.outer(fr.dec_hi, fc.dec_hi)]
-    rec = [np.outer(fr.rec_lo, fc.rec_lo), np.outer(fr.rec_hi, fc.rec_lo),
-           np.outer(fr.rec_lo, fc.rec_hi), np.outer(fr.rec_hi, fc.rec_hi)]
-    f2d = ns.Filters2D(dec, rec, name="db3xcoif1")
+import fft_oracle as fo  # noqa: E402
+
+
+def _dense_bank(k, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((k, k)) / k for _ in range(4)]
+
+
+@pytest.mark.parametrize("shape", [(32, 48), (33, 47)])
+@pytest.mark.parametrize("k", [4, 6, 12, 14, 16])
+def test_true_2d_forward_vs_fft_oracle(k, shape):
+    dec = _dense_bank(k, k)
+    f2d = ns.Filters2D(dec, dec)
     assert f2d.separable_bank() is None
-
-    rng = np.random.default_rng(11)
-    x = jnp.asarray(rng.random((64, 128), dtype=np.float32))
-    got = nsp.nsdwt2d_fused(x, f2d)
-    assert got is not None
-    want = ns.nsdwt2d.__wrapped__(x, f2d) if hasattr(ns.nsdwt2d,
-                                                     "__wrapped__") else None
-    # compute the XLA reference by bypassing the pallas dispatch
-    from pypwt_tpu.core import dwt as dwt_mod
-    dwt_mod.set_kernels("jnp")
-    try:
-        want = ns.nsdwt2d(x, f2d)
-    finally:
-        dwt_mod.set_kernels("auto")
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        assert float(jnp.abs(g - w.astype(jnp.float32)).max()) < 1e-5
-
-    y = nsp.insdwt2d_fused(*got, f2d, (64, 128))
-    assert y is not None
-    dwt_mod.set_kernels("jnp")
-    try:
-        yw = ns.insdwt2d(*[g.astype(jnp.float64) for g in got], f2d,
-                         (64, 128))
-    finally:
-        dwt_mod.set_kernels("auto")
-    assert float(jnp.abs(y - yw.astype(jnp.float32)).max()) < 1e-5
-    assert float(jnp.abs(y - x).max()) < 1e-4
+    x = np.random.default_rng(7).standard_normal(shape)
+    got = jax.jit(lambda v: ns.nsdwt2d(v, f2d))(jnp.asarray(x))
+    for g, w in zip(got, fo.fft_ns_dwt2d(x, dec)):
+        np.testing.assert_allclose(np.asarray(g), w, atol=1e-11)
 
 
-def test_nonsep_pallas_higher_rank_quincunx_like():
-    """A genuinely 2D (rank-2) bank still runs the fused path and
-    reconstructs: build rank-2 PR filters by mixing two separable PR
-    banks (sum of two outer products stays perfect-reconstruction when
-    the cross terms cancel -- here we simply verify the forward matches
-    the XLA path; PR is not required of arbitrary user banks)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pypwt_tpu.ops import nonsep_pallas as nsp
-    from pypwt_tpu.core import nonsep as ns
-    from pypwt_tpu.core import dwt as dwt_mod
-    from pypwt_tpu.filters import get_filter_bank
-
-    f1 = get_filter_bank("db2")
-    lo, hi = np.asarray(f1.dec_lo), np.asarray(f1.dec_hi)
-    # rank-2 2D filters: mixes of two orthogonal outer products
-    dec = [0.8 * np.outer(lo, lo) + 0.2 * np.outer(hi, hi),
-           0.8 * np.outer(hi, lo) + 0.2 * np.outer(lo, hi),
-           0.8 * np.outer(lo, hi) + 0.2 * np.outer(hi, lo),
-           0.8 * np.outer(hi, hi) + 0.2 * np.outer(lo, lo)]
-    rec = dec  # synthesis bank irrelevant for this forward check
-    f2d = ns.Filters2D(dec, rec, name="rank2mix")
-    terms = nsp._dec_terms(f2d)
-    assert terms is not None
-    assert max(len(t) for t in terms) == 2
-
-    rng = np.random.default_rng(12)
-    x = jnp.asarray(rng.random((64, 64), dtype=np.float32))
-    got = nsp.nsdwt2d_fused(x, f2d)
-    assert got is not None
-    dwt_mod.set_kernels("jnp")
-    try:
-        want = ns.nsdwt2d(x, f2d)
-    finally:
-        dwt_mod.set_kernels("auto")
-    for g, w in zip(got, want):
-        assert float(jnp.abs(g - w.astype(jnp.float32)).max()) < 1e-5
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("k", [4, 14])
+def test_true_2d_swt_dilations_vs_fft_oracle(k, level):
+    dec = _dense_bank(k, 100 + k)
+    f2d = ns.Filters2D(dec, dec)
+    x = np.random.default_rng(8).standard_normal((24, 40))
+    got = jax.jit(lambda v: ns.ns_swt2d_level(v, f2d, level))(
+        jnp.asarray(x))
+    for g, w in zip(got, fo.fft_ns_swt2d_level(x, dec, level)):
+        np.testing.assert_allclose(np.asarray(g), w, atol=1e-11)
 
 
-def test_nonsep_swt_pallas_matches_xla():
-    """The fused a-trous separable-sum kernels match the slice-based
-    XLA formulation and round-trip, for an anisotropic rank-1 bank."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pypwt_tpu.ops import nonsep_pallas as nsp
-    from pypwt_tpu.core import nonsep as ns
-    from pypwt_tpu.core import dwt as dwt_mod
-    from pypwt_tpu.filters import get_filter_bank
-
-    fr = get_filter_bank("db3")
-    fc = get_filter_bank("coif1")
+def _aniso_bank(row, col):
+    fr, fc = get_filter_bank(row), get_filter_bank(col)
     dec = [np.outer(fr.dec_lo, fc.dec_lo), np.outer(fr.dec_hi, fc.dec_lo),
            np.outer(fr.dec_lo, fc.dec_hi), np.outer(fr.dec_hi, fc.dec_hi)]
     rec = [np.outer(fr.rec_lo, fc.rec_lo), np.outer(fr.rec_hi, fc.rec_lo),
            np.outer(fr.rec_lo, fc.rec_hi), np.outer(fr.rec_hi, fc.rec_hi)]
-    f2d = ns.Filters2D(dec, rec, name="db3xcoif1")
-
-    rng = np.random.default_rng(21)
-    x = jnp.asarray(rng.random((64, 128), dtype=np.float32))
-    for level in (1, 2):
-        got = nsp.ns_swt2d_fused(x, f2d, level)
-        assert got is not None, level
-        dwt_mod.set_kernels("jnp")
-        try:
-            want = ns.ns_swt2d_level(x, f2d, level)
-        finally:
-            dwt_mod.set_kernels("auto")
-        for g, w in zip(got, want):
-            assert g.shape == w.shape
-            assert float(jnp.abs(g - w.astype(jnp.float32)).max()) \
-                < 1e-5, level
-        y = nsp.ins_swt2d_fused(*got, f2d, level)
-        assert y is not None, level
-        dwt_mod.set_kernels("jnp")
-        try:
-            yw = ns.ins_swt2d_level(*got, f2d, level)
-        finally:
-            dwt_mod.set_kernels("auto")
-        assert float(jnp.abs(y - yw.astype(jnp.float32)).max()) < 1e-5
-    # multi-level roundtrip through the public nonsep SWT driver
-    c = ns.ns_swt2d(x, f2d, 2)
-    y = ns.ins_swt2d(c, f2d)
-    assert float(jnp.abs(y - x).max()) < 1e-4
+    return ns.Filters2D(dec, rec, name=f"{row}x{col}")
 
 
-def test_nonsep_pallas_rank6_dense_bank():
-    """Rank>4 dense 2D banks now run the SVD separable-sum kernels (the
-    old cap declined them to the slow XLA fallback; VERDICT r2 missing
-    #3).  Forward of a rank-6 mixture must match the XLA slice path."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pypwt_tpu.ops import nonsep_pallas as nsp
-    from pypwt_tpu.core import nonsep as ns
-    from pypwt_tpu.core import dwt as dwt_mod
-    from pypwt_tpu.filters import get_filter_bank
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_anisotropic_bank_pyramid_vs_oracle_and_roundtrip(levels):
+    """db3 rows x coif1 cols: perfect reconstruction, but no isotropic 1D
+    bank, so every level runs the true-2D slice path."""
+    f2d = _aniso_bank("db3", "coif1")
+    assert f2d.separable_bank() is None
+    x = np.random.default_rng(9).standard_normal((64, 48))
+    pyr = jax.jit(lambda v: ns.ns_wavedec2(v, f2d, levels))(jnp.asarray(x))
+    a = x
+    for lev in range(1, levels + 1):
+        a, h, v, d = fo.fft_ns_dwt2d(a, f2d.dec)
+        for g, w in zip(pyr[lev], (h, v, d)):
+            np.testing.assert_allclose(np.asarray(g), w, atol=1e-10)
+    np.testing.assert_allclose(np.asarray(pyr[0]), a, atol=1e-10)
+    y = jax.jit(lambda c: ns.ns_waverec2(c, f2d, x.shape))(pyr)
+    np.testing.assert_allclose(np.asarray(y), x, atol=1e-10)
 
-    rng = np.random.default_rng(66)
-    banks = [get_filter_bank(w)
-             for w in ("db3", "sym4", "coif1", "db2", "sym5", "db4")]
-    mix = rng.dirichlet(np.ones(len(banks)))
-    W6 = 10
-    dec = []
-    for lo_a, hi_a in (("dec_lo", "dec_lo"), ("dec_hi", "dec_lo"),
-                       ("dec_lo", "dec_hi"), ("dec_hi", "dec_hi")):
-        F = sum(w * np.outer(
-                    np.pad(getattr(b, lo_a),
-                           (0, W6 - len(getattr(b, lo_a)))),
-                    np.pad(getattr(b, hi_a),
-                           (0, W6 - len(getattr(b, hi_a)))))
-                for w, b in zip(mix, banks))
-        dec.append(F)
-    f2d = ns.Filters2D(dec, dec, name="rank6mix")
-    terms = nsp._dec_terms(f2d)
-    assert terms is not None
-    assert max(len(t) for t in terms) >= 5  # genuinely above the old cap
 
-    x = jnp.asarray(rng.random((64, 64), dtype=np.float32))
-    got = nsp.nsdwt2d_fused(x, f2d)
-    assert got is not None
-    dwt_mod.set_kernels("jnp")
-    try:
-        want = ns.nsdwt2d(x, f2d)
-    finally:
-        dwt_mod.set_kernels("auto")
-    for g, w in zip(got, want):
-        assert float(jnp.abs(g - w.astype(jnp.float32)).max()) < 2e-5
+def test_anisotropic_bank_swt_roundtrip():
+    f2d = _aniso_bank("coif1", "db3")
+    x = np.random.default_rng(10).standard_normal((32, 40))
+    pyr = jax.jit(lambda v: ns.ns_swt2d(v, f2d, 2))(jnp.asarray(x))
+    a = x
+    for lev in (1, 2):
+        a, h, v, d = fo.fft_ns_swt2d_level(a, f2d.dec, lev)
+        for g, w in zip(pyr[lev], (h, v, d)):
+            np.testing.assert_allclose(np.asarray(g), w, atol=1e-10)
+    y = jax.jit(lambda c: ns.ins_swt2d(c, f2d))(pyr)
+    np.testing.assert_allclose(np.asarray(y), x, atol=1e-10)

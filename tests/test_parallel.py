@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu.filters import get_filter_bank
-from pypwt_tpu.core import dwt, swt
-from pypwt_tpu.parallel import batch, mesh as pmesh, spatial
+from pypwt_jax.filters import get_filter_bank
+from pypwt_jax.core import dwt, swt
+from pypwt_jax.parallel import batch, mesh as pmesh, spatial
 
 RNG = np.random.default_rng(11)
 

@@ -1,11 +1,11 @@
-"""Compiled denoising pipelines (pypwt_tpu.pipeline)."""
+"""Compiled denoising pipelines (pypwt_jax.pipeline)."""
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu import Wavelets, pipeline
+from pypwt_jax import Wavelets, pipeline
 
 
 def _noisy(shape=(64, 64), seed=0):
@@ -58,14 +58,22 @@ def test_cycle_spinning_reproducible_and_denoises():
     assert float(np.abs(np.asarray(o1) - np.asarray(o3)).max()) > 0
 
 
-def test_profiling_utils(tmp_path):
-    from pypwt_tpu.utils import profiling
+def test_profiling_utils(tmp_path, monkeypatch):
+    from pypwt_jax.utils import profiling
     x = jnp.asarray(np.ones((8, 128), np.float32))
     assert profiling.device_sync(x) == 1.0
     t = profiling.time_chained(lambda v: v * 1.0000001, x, iters=8,
                                reps=2)
     assert t > 0
-    p = profiling.enable_compile_cache(str(tmp_path / "xla_cache"))
+    # the cache goes where JAX_COMPILATION_CACHE_DIR says, and only there
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        p = profiling.enable_compile_cache()
+        assert p == str(tmp_path / "xla")
+        assert jax.config.jax_compilation_cache_dir == p
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
     import os
     assert os.path.isdir(p)
 
@@ -76,7 +84,7 @@ def test_cycle_spinning_static_shifts():
     the same result as their mod-2^levels equivalents."""
     import numpy as np
     import jax.numpy as jnp
-    from pypwt_tpu import pipeline
+    from pypwt_jax import pipeline
 
     rng = np.random.default_rng(7)
     img = jnp.asarray(rng.random((64, 64), dtype=np.float32) * 255)

@@ -30,8 +30,8 @@ pywt = pytest.importorskip(
     "download attempted and recorded)")
 
 import fft_oracle as fo
-from pypwt_tpu import Wavelets
-from pypwt_tpu.filters import get_filter_bank
+from pypwt_jax import Wavelets
+from pypwt_jax.filters import get_filter_bank
 
 BANKS = ["haar", "db2", "db8", "sym8", "coif3", "bior4.4", "rbio3.5",
          "db10"]

@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir,
                                 "tools"))
 import refparse  # noqa: E402
 
-from pypwt_tpu.filters import get_filter_bank  # noqa: E402
+from pypwt_jax.filters import get_filter_bank  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
     not refparse.available(), reason="reference checkout not available")

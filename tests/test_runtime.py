@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from pypwt_tpu import runtime
-from pypwt_tpu.core import shapes
-from pypwt_tpu import Wavelets
+from pypwt_jax import runtime
+from pypwt_jax.core import shapes
+from pypwt_jax import Wavelets
 
 
 def test_native_available():
@@ -172,7 +172,7 @@ def test_checkpoint_float64(tmp_path):
 
 
 def test_checkpoint_custom_bank_refused():
-    from pypwt_tpu import get_filter_bank
+    from pypwt_jax import get_filter_bank
     img = np.random.default_rng(9).random((32, 32)).astype(np.float32)
     W = Wavelets(img, "db2", 2)
     fb = get_filter_bank("db2")

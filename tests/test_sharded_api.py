@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu import Wavelets, get_filter_bank
-from pypwt_tpu.parallel import (BatchedWavelets, ShardedWavelets,
+from pypwt_jax import Wavelets, get_filter_bank
+from pypwt_jax.parallel import (BatchedWavelets, ShardedWavelets,
                                 mesh as pmesh)
 
 pytestmark = pytest.mark.skipif(
@@ -124,7 +124,7 @@ def test_sharded_nonaligned_coeffs_are_periodized():
     the periodic extension to the mesh-aligned size (VERDICT r4
     missing #2 — the old edge-replicated pad made the padded pyramid an
     undocumented object)."""
-    from pypwt_tpu.core import dwt as _dwt
+    from pypwt_jax.core import dwt as _dwt
     img = _img(100, 70, 4)
     SW = ShardedWavelets(img, "db2", 2, mesh=_mesh_rows(8))
     assert SW._padded == (128, 72)
@@ -146,7 +146,7 @@ def test_sharded_nonaligned_denoise_interior_matches_single_plan():
     different lengths) — the honest any-size statement (VERDICT r4
     next #6).  Uses 250x385 (same non-alignment class as 1000x1537,
     CPU-affordable)."""
-    from pypwt_tpu import pipeline
+    from pypwt_jax import pipeline
     img = _img(250, 385, 5)
     levels, beta = 2, 0.2
     SW = ShardedWavelets(img, "db3", levels, mesh=_mesh_rows(8))

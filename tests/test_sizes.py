@@ -1,6 +1,6 @@
 """Size sweep (the reference's test/test_sizes.py, SURVEY.md §4):
 round-trip correctness across image geometries, including odd sizes,
-extreme aspect ratios, and sizes around the Pallas band boundaries.
+and extreme aspect ratios.
 
 Kept CPU-affordable by default; PYPWT_FULL_SWEEP=1 adds larger sizes.
 """
@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from pypwt_tpu import Wavelets
+from pypwt_jax import Wavelets
 
 FULL = os.environ.get("PYPWT_FULL_SWEEP", "") == "1"
 

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu import get_filter_bank
-from pypwt_tpu.core import dwt
-from pypwt_tpu.parallel import mesh as pmesh, spatial
+from pypwt_jax import get_filter_bank
+from pypwt_jax.core import dwt
+from pypwt_jax.parallel import mesh as pmesh, spatial
 
 
 def test_gridsharded_matches_local():
@@ -74,45 +74,19 @@ def test_seqsharded_batched_rows():
     np.testing.assert_allclose(np.asarray(y), np.asarray(x), atol=1e-5)
 
 
-def test_gridsharded_mxu_wide_filter():
-    """Wide filters on the grid path route the padded-core banded MXU
-    kernels (ops/mxu_dwt.py build_*_padded_*_mxu) and match the core."""
+def test_gridsharded_wide_filter():
+    """Wide filters on the grid path (multi-sample halos on both rings)
+    match the single-device core."""
     fb = get_filter_bank("sym8")
     m = pmesh.make_mesh2d(2, 2, devices=jax.devices()[:4])
     nr, nc = 128, 256
     x = jnp.asarray(np.random.default_rng(3).random((nr, nc)).astype(
         np.float32))
-    dwt.set_kernels("mxu")
-    try:
-        got = spatial.wavedec2_gridsharded(x, fb, 2, m)
-        y = spatial.waverec2_gridsharded(got, fb, m)
-    finally:
-        dwt.set_kernels("auto")
+    got = spatial.wavedec2_gridsharded(x, fb, 2, m)
+    y = spatial.waverec2_gridsharded(got, fb, m)
     want = jax.jit(lambda v: dwt.wavedec2(v, fb, 2))(x)
     for g, w in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w),
                                    atol=5e-5)
     np.testing.assert_allclose(np.asarray(y), np.asarray(x), atol=5e-5)
-
-
-def test_padded_core_mxu_builders_cover():
-    """The padded-core MXU builders cover the exact pad geometry the
-    sharded paths produce (and decline anything else)."""
-    from pypwt_tpu.ops import mxu_dwt as mx
-    from pypwt_tpu.core import conv
-
-    fb = get_filter_bank("sym8")
-    taps = lambda f: tuple(float(v) for v in np.asarray(f, np.float64))
-    hlen = fb.hlen
-    L = 64
-    ncp = 2 * L + hlen - 2
-    assert mx.build_ana_padded_lanes_mxu(
-        64, ncp, L, taps(fb.dec_lo), taps(fb.dec_hi), True) is not None
-    assert mx.build_ana_padded_lanes_mxu(
-        64, ncp + 2, L, taps(fb.dec_lo), taps(fb.dec_hi), True) is None
-    lpad, rpad = conv.synthesis_pads(hlen, L, 2 * L)
-    Lp = lpad + L + rpad
-    assert mx.build_syn_padded_rows_mxu(
-        Lp, 128, 2 * L, lpad, taps(fb.rec_lo), taps(fb.rec_hi),
-        True) is not None

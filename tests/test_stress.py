@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from pypwt_tpu import Wavelets, wavelist
+from pypwt_jax import Wavelets, wavelist
 
 pytestmark = pytest.mark.skipif(
     os.environ.get("PYPWT_STRESS", "") != "1",

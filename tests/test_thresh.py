@@ -7,7 +7,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pypwt_tpu.core import thresh
+from pypwt_jax.core import thresh
 
 S2 = math.sqrt(2.0)
 

@@ -16,8 +16,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pypwt_tpu.filters import get_filter_bank
-from pypwt_tpu.core import conv, dwt, haar, swt
+from pypwt_jax.filters import get_filter_bank
+from pypwt_jax.core import conv, dwt, haar, swt
 from oracle import (ref_analysis_1d, ref_analysis_2d, ref_swt_analysis_1d,
                     ref_swt_synthesis_1d, ref_synthesis_1d, ref_synthesis_2d)
 
@@ -228,7 +228,7 @@ def test_swt2d_roundtrip(wname):
 # ---------------------------------------------------------------------------
 
 def test_roundtrip_all_wavelets_2d():
-    from pypwt_tpu.filters import wavelist
+    from pypwt_jax.filters import wavelist
     shape = (64, 64)
     by_hlen = {}
     for name in wavelist():
@@ -247,10 +247,10 @@ def test_roundtrip_all_wavelets_2d():
 
 
 def test_long1d_fold_matches_direct():
-    """Long signals fold into rows (a (1, n) layout is pathologically
-    slow on TPU); results must match the direct path exactly."""
-    from pypwt_tpu.core import conv, dwt, swt
-    from pypwt_tpu.filters import get_filter_bank
+    """Long signals fold into rows with neighbour-row halos; results must
+    match the direct path exactly."""
+    from pypwt_jax.core import conv, dwt, swt
+    from pypwt_jax.filters import get_filter_bank
     import numpy as np
     import jax.numpy as jnp
     rng = np.random.default_rng(11)
@@ -274,99 +274,39 @@ def test_long1d_fold_matches_direct():
 
 
 def test_long1d_shape_rules():
-    from pypwt_tpu.core import conv
+    from pypwt_jax.core import conv
     assert conv.long1d_shape(100) is None          # too small
     assert conv.long1d_shape((1 << 16) + 1) is None  # odd
     r, c = conv.long1d_shape(1 << 20)
     assert c % 128 == 0                             # aligned preference
-    # round-5 rule: keep >= 128 rows so the transposed column pass runs
-    # full 128-lane tiles at every level of a deep decomposition
+    # foldings keep >= 128 rows at every level of a deep decomposition
     for n in (1 << 15, 1 << 18, 1 << 20, 1 << 22):
         r, c = conv.long1d_shape(n)
         assert r >= 128, (n, r, c)
 
 
-def test_long1d_variant_coverage_guards():
-    """Chip-measured VMEM caps per fold variant (round 5): plain blows
-    up from hlen 14-16, scratch DWT from ~18-20, scratch a-trous is
-    proven through 20 — builders must DECLINE there, not fail at run
-    time."""
-    from pypwt_tpu.ops import pallas_dwt as pk
-    assert pk._long_variant_covers("plain", 12)
-    assert not pk._long_variant_covers("plain", 16)
-    assert pk._long_variant_covers("scratch", 16)
-    assert not pk._long_variant_covers("scratch", 20)
-    assert pk._long_variant_covers("scratch", 20, atrous=True)
-    assert not pk._long_variant_covers("scratch", 24, atrous=True)
-    # default variant is scratch for BOTH families (the bench floor
-    # gate caught a plain default silently routing wide SWT banks to
-    # the jnp fold)
-    assert pk._long_variant("dwt") == "scratch"
-    assert pk._long_variant("swt") == "scratch"
-
-
-def test_long1d_fused_kernels_match_jnp():
-    """The fused long-1D kernels (fold + padded batched kernel) must
-    match the jnp folded path exactly (interpret mode on CPU).  Wide
-    banks (hlen x padded width beyond the VMEM model) decline and serve
-    from the jnp folded path instead."""
-    from pypwt_tpu.core import conv
-    from pypwt_tpu.ops import pallas_dwt as pk
-    from pypwt_tpu.filters import get_filter_bank
-    import numpy as np
-    import jax.numpy as jnp
-    n = 1 << 16
-    rng = np.random.default_rng(12)
-    x = jnp.asarray(rng.random(n, dtype=np.float32))
-    rc = conv.long1d_shape(n)
-    for wname in ("haar", "db2"):
-        fb = get_filter_bank(wname)
-        want = conv.analysis_long1d(x, fb.dec_lo, fb.dec_hi, rc)
-        got = pk.dwt1d_long_fused(x, fb, rc)
-        assert got is not None, wname
-        for g, w in zip(got, want):
-            assert float(jnp.abs(g - w).max()) < 1e-6, wname
-        rc2 = (rc[0] // 2, rc[1]) if rc[0] % 2 == 0 else None
-        rc_half = conv.long1d_shape(n // 2) or rc2
-        y = pk.idwt1d_long_fused(got[0], got[1], fb, n, rc_half)
-        assert y is not None, wname
-        yw = conv.synthesis_long1d(want[0], want[1], fb.rec_lo,
-                                   fb.rec_hi, n, rc_half)
-        assert float(jnp.abs(y - yw).max()) < 1e-6, wname
-        assert float(jnp.abs(y - x).max()) < 7e-4, wname
-        # stationary level (dilated taps, lane slices inside the kernel)
-        sw = conv.swt_analysis_long1d(x, fb.dec_lo, fb.dec_hi, 3, rc)
-        sg = pk.swt1d_long_fused(x, fb, 3, rc)
-        assert sg is not None, wname
-        for g, w in zip(sg, sw):
-            assert float(jnp.abs(g - w).max()) < 1e-6, wname
-        bw = conv.swt_synthesis_long1d(sw[0], sw[1], fb.rec_lo,
-                                       fb.rec_hi, 3, rc)
-        bg = pk.iswt1d_long_fused(sg[0], sg[1], fb, 3, rc)
-        assert bg is not None, wname
-        assert float(jnp.abs(bg - bw).max()) < 1e-6, wname
-
-    # wide banks: the round-5 >=128-row folding keeps them buildable
-    # (the old (8, 8192) fold forced 8-lane transposed tiles and a
-    # 142 MB VMEM blowup that had to decline); they must now build AND
-    # match the jnp fold.  The decline guard still exists for shallow
-    # foldings — pin it directly on a wide narrow-fold geometry.
-    for wname in ("db8", "sym8"):
-        fbw = get_filter_bank(wname)
-        want = conv.analysis_long1d(x, fbw.dec_lo, fbw.dec_hi, rc)
-        got = pk.dwt1d_long_fused(x, fbw, rc)
-        assert got is not None, wname
-        for g, w in zip(got, want):
-            assert float(jnp.abs(g - w).max()) < 1e-6, wname
-    assert pk._long1d_bands(8, 8192, 7, 8, 16, n_bufs=6) is None
+@pytest.mark.parametrize("n,min_rows,want", [
+    (1 << 20, 256, (256, 4096)),
+    (1 << 20, 1024, (1024, 1024)),
+    (1 << 20, 8, (128, 8192)),
+    (1 << 15, 256, None),
+])
+def test_long1d_shape_honours_min_rows(n, min_rows, want):
+    """A caller's min_rows above 128 is never undercut by the 128-row
+    preference (the folding used to return 128 rows for min_rows=256)."""
+    from pypwt_jax.core import conv
+    got = conv.long1d_shape(n, min_rows=min_rows)
+    assert got == want
+    if got is not None:
+        assert got[0] >= min_rows and got[0] * got[1] == n
 
 
 def test_long1d_swt_deep_dilations():
     """Dilated supports beyond one folded row: multi-row halos, and
     whole-row rolls when the dilation is a row multiple — the (1, n)
     fallback is never taken."""
-    from pypwt_tpu.core import conv
-    from pypwt_tpu.filters import get_filter_bank
+    from pypwt_jax.core import conv
+    from pypwt_jax.filters import get_filter_bank
     import numpy as np
     import jax.numpy as jnp
     n = 1 << 16

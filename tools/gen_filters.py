@@ -15,7 +15,7 @@ Families (same capability set as the reference, pdwt/src/filters.cpp:5919-6009):
 * ``rbio*``                    — reverse biorthogonal (dec/rec swap).
 
 Run ``python tools/gen_filters.py`` to (re)generate
-``pypwt_tpu/filters/_tables.py``.  With a reference checkout available,
+``pypwt_jax/filters/_tables.py``.  With a reference checkout available,
 ``--check`` verifies every generated bank against the reference tables.
 
 Only the low-pass filters are generated/stored; the high-pass filters follow
@@ -445,7 +445,7 @@ Generated by tools/gen_filters.py from mathematical constructions
 (spectral factorization, spline/CDF constructions, Newton solves).
 Layout matches the reference registry (pdwt/src/filters.cpp:5919-6009):
 only the low-pass pair (dec_lo, rec_lo) is stored; high-pass filters follow
-from the sign relations in pypwt_tpu/filters/__init__.py.
+from the sign relations in pypwt_jax/filters/__init__.py.
 """
 
 # fmt: off
@@ -504,6 +504,6 @@ if __name__ == "__main__":
         ok = check(banks)
         sys.exit(0 if ok else 1)
     dest = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        os.pardir, "pypwt_tpu", "filters", "_tables.py")
+                        os.pardir, "pypwt_jax", "filters", "_tables.py")
     emit(os.path.abspath(dest), banks)
     print(f"wrote {len(banks)} banks")

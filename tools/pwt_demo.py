@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""pypwt_tpu demo CLI — the reference demo's workflows, TPU-native.
+"""pypwt_jax demo CLI — the reference demo's workflows.
 
 The reference ships an interactive C++ demo binary (pdwt/src/demo.cpp)
 exercising forward / round-trip / threshold+inverse on a raw 512^2 .dat
@@ -28,7 +28,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
-from pypwt_tpu import Wavelets, runtime  # noqa: E402
+from pypwt_jax import Wavelets, runtime  # noqa: E402
 
 
 def _load_img(path, size=None):

@@ -4,7 +4,7 @@ This is a *test/dev utility only*: it reads the public reference implementation
 (pierrepaleo/pypwt, mounted read-only) and extracts its numeric filter-bank
 tables so that our independently *generated* filter banks can be checked for
 behavioral parity.  Nothing parsed here is shipped; the shipped tables in
-``pypwt_tpu/filters`` are produced by ``tools/gen_filters.py`` from
+``pypwt_jax/filters`` are produced by ``tools/gen_filters.py`` from
 mathematical constructions.
 
 Reference layout: ``pdwt/src/filters.cpp`` defines, per wavelet, four arrays
